@@ -1,7 +1,7 @@
 """Tests for active-sampling features wired in round 2: the GP-train cost
 model, repeated observations for noisy targets, integer variables, the
 initial-design k-means thinning + search cache, and the coarse bucket
-profile (TPU shape planning)."""
+profile (accelerator shape planning)."""
 
 import math
 

@@ -1,4 +1,4 @@
-"""Batched complementary-halves ensemble slice sampler (the TPU-native
+"""Batched complementary-halves ensemble slice sampler (the batched
 'covsample', `get_GPTrainOptions.m:60-100`): distributional correctness on
 an analytic target, and the D=10 GP-hyperparameter wiring
 (`gp.fit.hyp_sampler_for` switches to the ensemble at nhyp > 24)."""

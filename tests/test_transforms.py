@@ -92,7 +92,7 @@ def test_probability_conservation(rng):
 def test_trinfo_pytree_structure_stable_under_warp(rng):
     """The first input warp must NOT change the trinfo pytree structure
     (R_mat/scale None -> array would recompile every jitted kernel taking
-    a vp/trinfo; measured as the dominant cold-start cost on TPU)."""
+    a vp/trinfo and recompile every kernel)."""
     from vbmc_tpu.vp import make_vp
     from vbmc_tpu.warp import compute_rotoscale
 

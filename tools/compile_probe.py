@@ -1,4 +1,4 @@
-"""Probe XLA compile times of vp_rnd/moments variants on the TPU."""
+"""Probe XLA compile times of vp_rnd/moments variants on the current device."""
 import sys, os, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np

@@ -4,7 +4,7 @@ Prints per-iteration phase timers and (with VBMC_PROF_LOG_COMPILES=1) every
 XLA compile with its duration, to locate the wall-clock and compile-time
 hot spots of the bench critical path.
 
-Usage:  VBMC_COMPILE_CACHE=/tmp/fresh python tools/prof_noisy.py
+Usage:  JAX_COMPILATION_CACHE_DIR=/tmp/fresh python tools/prof_noisy.py
 """
 
 import os

@@ -1,10 +1,10 @@
-"""VBMC-TPU: a TPU-native framework for sample-efficient Bayesian inference.
+"""A JAX framework for sample-efficient Bayesian inference (VBMC).
 
 Re-implements the capabilities of VBMC (Variational Bayesian Monte Carlo,
 reference: acerbilab/vbmc) as an idiomatic JAX/XLA design: Gaussian-process
 surrogate math batched over hyperparameter samples, Bayesian-quadrature ELBO
 vectorized over mixture components, acquisition sweeps and MCMC chains as
-data-parallel batches shardable over a TPU device mesh.
+data-parallel batches shardable over a device mesh.
 """
 
 __version__ = "0.1.0"

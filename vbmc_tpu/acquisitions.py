@@ -147,50 +147,3 @@ def evaluate_acquisition(cfg: GPConfig, name: str, Xs: jnp.ndarray,
     out = (jnp.any(X_orig < state.lb_eps_orig[None, :], axis=1)
            | jnp.any(X_orig > state.ub_eps_orig[None, :], axis=1))
     return jnp.where(out, jnp.inf, acq)
-
-
-@jax.jit
-def _bound_rejection(trinfo, Xs, lb_eps, ub_eps, acq):
-    X_orig = inverse(trinfo, Xs)
-    out = (jnp.any(X_orig < lb_eps[None, :], axis=1)
-           | jnp.any(X_orig > ub_eps[None, :], axis=1))
-    return jnp.where(out, jnp.inf, acq)
-
-
-def _pallas_sweep_ok(cfg: GPConfig, name: str, m: int) -> bool:
-    from vbmc_tpu.gp.config import MEAN_ZERO, MEAN_CONST, MEAN_NEGQUAD
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    return (on_tpu and name == "prospective"
-            and cfg.intmean == 0 and cfg.outwarp == 0
-            and cfg.meanfun in (MEAN_ZERO, MEAN_CONST, MEAN_NEGQUAD)
-            and m % 256 == 0)
-
-
-def sweep_acquisition(cfg: GPConfig, name: str, Xs: jnp.ndarray,
-                      vp: VariationalPosterior, gp: GP, state: AcqState,
-                      smooth: bool = False):
-    """Acquisition sweep dispatcher: on TPU the prospective sweep runs as
-    the fused Pallas kernel (`pallas_kernels.fused_prospective_acq` — one
-    VMEM-resident pass instead of HBM-materialized (S,N,M) intermediates);
-    every other case uses the XLA path, which remains the reference
-    implementation (`tests/test_pallas.py` checks agreement to 1e-6)."""
-    global _pallas_disabled
-    if (not smooth and not _pallas_disabled
-            and _pallas_sweep_ok(cfg, name, Xs.shape[0])):
-        try:
-            from vbmc_tpu.pallas_kernels import fused_prospective_acq
-            acq = fused_prospective_acq(cfg, Xs, gp, vp, state.ymax,
-                                        state.tol_var)
-            return _bound_rejection(vp.trinfo, Xs, state.lb_eps_orig,
-                                    state.ub_eps_orig, acq)
-        except Exception as e:  # Mosaic lowering/VMEM limits: XLA fallback
-            import warnings
-            warnings.warn(f"Pallas acquisition kernel disabled: {e!r}")
-            _pallas_disabled = True
-    return evaluate_acquisition(cfg, name, Xs, vp, gp, state, smooth=smooth)
-
-
-_pallas_disabled = False

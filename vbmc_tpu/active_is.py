@@ -70,7 +70,7 @@ _U_IQR = 0.6744897501960817  # norminv(0.75)
 
 def build_is_state(key, cfg: GPConfig, acq_name: str,
                    vp: VariationalPosterior, gp: GP, options) -> ISState:
-    """Assemble the importance-sampling set (simplified TPU-native version of
+    """Assemble the importance-sampling set (simplified batched version of
     `activeimportancesampling_vbmc.m`); thin host wrapper around the fully
     traceable `build_is_state_core`."""
     return build_is_state_core(
@@ -126,7 +126,7 @@ def build_is_state_core(key, cfg: GPConfig, acq_name: str,
     smoothed variational posterior (3 widening scales) plus box-uniform
     draws around training inputs; weights from the current GP.
 
-    fESS-gated MCMC refresh (`ais:37-104,153-235`), redesigned TPU-first:
+    fESS-gated MCMC refresh (`ais:37-104,153-235`), redesigned for batches:
     the reference advances walkers one at a time by ensemble slice sampling
     (`eissample_lite.m`) — a serial chain of single-point GP predictions.
     Here, when the fractional ESS of resampling the proposal set toward the
@@ -317,80 +317,3 @@ def evaluate_is_acquisition(cfg: GPConfig, name: str, Xs: jnp.ndarray,
 def _log_sinh(x):
     """Numerically stable log(sinh(x)) for x >= 0."""
     return x + jnp.log1p(-jnp.exp(-2.0 * x)) - jnp.log(2.0)
-
-
-def _pallas_viqr_ok(cfg: GPConfig, m: int) -> bool:
-    # Opt-in (VBMC_PALLAS_VIQR=1): measured on TPU v5e at bench shapes
-    # (S=16, N=128, M=8192, Na~300), the XLA path runs the sweep in ~3.6 ms
-    # (its (S, M, Na) temporaries are fused into the matmul consumers well
-    # enough) while the VMEM-streamed kernel takes ~20 ms — the kernel
-    # saves HBM *capacity*, not time, at these sizes. Kept compile-checked
-    # and parity-tested for larger-Na regimes.
-    import os
-    if os.environ.get("VBMC_PALLAS_VIQR", "0") != "1":
-        return False
-    from vbmc_tpu.gp.config import MEAN_ZERO, MEAN_CONST, MEAN_NEGQUAD
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    return (on_tpu and cfg.intmean == 0 and cfg.outwarp == 0
-            and cfg.meanfun in (MEAN_ZERO, MEAN_CONST, MEAN_NEGQUAD)
-            and m % 256 == 0)
-
-
-_pallas_viqr_disabled = False
-
-
-def sweep_is_acquisition(cfg: GPConfig, name: str, Xs: jnp.ndarray,
-                         vp: VariationalPosterior, gp: GP, state,
-                         ais: ISState) -> jnp.ndarray:
-    """VIQR/IMIQR sweep dispatcher: on TPU the big candidate sweep runs as
-    the fused Pallas kernel (`pallas_kernels.fused_viqr_acq` — streams one
-    (tile, sample) block through VMEM instead of materializing (S, M, Na)
-    HBM temporaries); everything else (CPU, small CMA-ES population
-    batches) uses the XLA path, which remains the reference implementation
-    (`tests/test_pallas.py` checks agreement)."""
-    global _pallas_viqr_disabled
-    if not _pallas_viqr_disabled and _pallas_viqr_ok(cfg, Xs.shape[0]):
-        try:
-            acq = _fused_viqr_padded(cfg, Xs, gp, state, ais)
-            from vbmc_tpu.acquisitions import _bound_rejection
-            return _bound_rejection(vp.trinfo, Xs, state.lb_eps_orig,
-                                    state.ub_eps_orig, acq)
-        except Exception as e:  # Mosaic lowering/VMEM limits: XLA fallback
-            import warnings
-            warnings.warn(f"Pallas VIQR kernel disabled: {e!r}")
-            _pallas_viqr_disabled = True
-    return evaluate_is_acquisition(cfg, name, Xs, vp, gp, state, ais)
-
-
-def _fused_viqr_padded(cfg: GPConfig, Xs, gp: GP, state, ais: ISState):
-    """Pad the IS state's integration axis to a 128-multiple (Mosaic lane
-    tiling) and invoke the fused kernel. Padded slots carry ln_weight=-inf
-    so they contribute exactly zero to the log-sum-exp."""
-    from vbmc_tpu.pallas_kernels import fused_viqr_acq
-    from vbmc_tpu.acquisitions import _nearest_noise
-
-    dtype = Xs.dtype
-    Na = ais.Xa.shape[0]
-    nap = -(-Na // 128) * 128
-    pad = nap - Na
-    if pad:
-        Xa = jnp.concatenate([ais.Xa, jnp.zeros((pad, ais.Xa.shape[1]),
-                                                dtype=dtype)])
-        lnw = jnp.concatenate([ais.ln_weights,
-                               jnp.full((ais.ln_weights.shape[0], pad),
-                                        -jnp.inf, dtype=dtype)], axis=1)
-        fs2a = jnp.concatenate([ais.f_s2,
-                                jnp.ones((ais.f_s2.shape[0], pad),
-                                         dtype=dtype)], axis=1)
-        invk = jnp.concatenate([ais.invKzk,
-                                jnp.zeros(ais.invKzk.shape[:2] + (pad,),
-                                          dtype=dtype)], axis=2)
-    else:
-        Xa, lnw, fs2a, invk = ais.Xa, ais.ln_weights, ais.f_s2, ais.invKzk
-    sn2c = _nearest_noise(cfg, gp, Xs, state)
-    return fused_viqr_acq(cfg, Xs, gp, Xa, lnw, fs2a, invk, sn2c,
-                          state.tol_var,
-                          state.regularize.astype(dtype))

@@ -1,7 +1,7 @@
 """Masked GP core math: posterior factorization, marginal likelihood,
 hyperpriors.
 
-TPU-native design notes (vs `gplite/private/gplite_core.m`):
+Design notes (vs `gplite/private/gplite_core.m`):
 
 - All shapes are static: the training set lives in padded buffers of bucketed
   size N_max with a boolean mask, so the whole fit pipeline is jit-compiled
@@ -38,7 +38,7 @@ _LOG2PI = 1.8378770664093453
 class Posterior(NamedTuple):
     alpha: jnp.ndarray   # (N,)  B^{-1} (y - m), zero on padded rows
     L: jnp.ndarray       # (N,N) lower Cholesky of masked B = K + diag(sn2)
-    Binv: jnp.ndarray    # (N,N) B^{-1} — hot paths become GEMMs on the MXU
+    Binv: jnp.ndarray    # (N,N) B^{-1} — hot paths become GEMMs
     sn2: jnp.ndarray     # (N,)  per-point noise variance
     chol_ok: jnp.ndarray  # () bool — Cholesky succeeded without escalation
     # Integrated-mean extras (None unless cfg.intmean > 0; cf. the
@@ -130,8 +130,8 @@ def build_posterior(cfg: GPConfig, hyp: jnp.ndarray, X, y, s2, mask,
         ok = jnp.all(jnp.isfinite(jnp.diagonal(L)))
     alpha = cho_solve((L, True), r) * m
     # Explicit inverse: downstream quadratic forms (prediction variance,
-    # quadrature covariance, IS precomputes) become batched matmuls —
-    # MXU-shaped — instead of triangular solves. The Cholesky (with jitter
+    # quadrature covariance, IS precomputes) become batched matmuls
+    # instead of triangular solves. The Cholesky (with jitter
     # escalation) keeps the factorization stable; the inverse is only used
     # inside clamped quadratic forms.
     eye = jnp.eye(B.shape[0], dtype=B.dtype)

@@ -1,8 +1,8 @@
 """Covariance functions (cf. `gplite/gplite_covfun.m`).
 
 Gram matrices are computed as one large matmul plus elementwise transform —
-the shape XLA fuses well on TPU (MXU for the distance matmul, VPU for the
-exp). All functions are dense over padded shapes; masking happens in
+a shape XLA fuses well (a GEMM for the distances, one fused elementwise
+kernel for the exp). All functions are dense over padded shapes; masking happens in
 `core.py`.
 
 Families follow the reference ids (`gplite_covfun.m:77-91`): 0 'seiso'

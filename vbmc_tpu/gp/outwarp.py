@@ -5,7 +5,7 @@ below a learned threshold ``y0``, so the GP does not waste capacity (and
 length-scale) fitting the very low-density region. Reference behavior:
 `gplite/outwarp_negpow.m`, `outwarp_negpowc1.m`, `outwarp_negscaledpow.m`.
 
-TPU-native notes: every warp is a branchless elementwise transform (select
+Design notes: every warp is a branchless elementwise transform (select
 on ``y < y0``) differentiable by autodiff — the reference's hand-coded
 hyperparameter gradients (`outwarp_negpowc1.m:104-125`) are not needed and
 serve only as a test oracle. The warp identifier is part of the static

@@ -1,5 +1,5 @@
 """Inner optimizers: bounded L-BFGS and a tolerance-windowed Adam, both as
-fixed-shape `lax.scan` loops (TPU-friendly: no data-dependent Python control
+fixed-shape `lax.scan` loops (jit-friendly: no data-dependent Python control
 flow; early convergence freezes the state instead of exiting).
 """
 

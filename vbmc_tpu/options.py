@@ -1,4 +1,4 @@
-"""Typed configuration for VBMC-TPU.
+"""Typed configuration for VBMC.
 
 Replaces the reference's string-eval'd option system
 (`vbmc.m:158-366` basic+advanced defaults, `misc/setupoptions_vbmc.m`):
@@ -120,11 +120,9 @@ class VBMCOptions:
     search_optimizer: str = "cmaes"
     search_cmaes_vp_init: bool = True
     search_cmaes_best: bool = False
-    # CMA-ES population for acquisition refinement. Measured on TPU: larger
-    # populations do NOT reduce wall-clock (the sweep cost is dispatch-bound,
-    # not scan-length-bound) and degrade refinement quality at a fixed
-    # evaluation budget (cigar3 seed-3 regression), so the reference-like
-    # default is kept on all backends.
+    # CMA-ES population for acquisition refinement. Larger populations
+    # degrade refinement quality at a fixed evaluation budget (cigar3
+    # seed-3 regression), so the reference-like default is kept.
     search_cmaes_popsize: int = 16
     search_max_fun_evals: Optional[int] = None   # 500*(D+2)
     moments_run_weight: float = 0.9
@@ -180,7 +178,7 @@ class VBMCOptions:
     active_importance_sampling_box_samples: int = 100
     active_importance_sampling_mcmc_samples: int = 100
     active_importance_sampling_mcmc_thin: int = 1
-    # TPU-native replacement for the reference's ensemble-slice IS refresh
+    # Batched replacement for the reference's ensemble-slice IS refresh
     # (`activeimportancesampling_vbmc.m:37-104`): rounds of batched
     # independent-MH toward the IS base density when fESS is low (0 = off).
     active_importance_sampling_mh_steps: int = 3
@@ -211,10 +209,10 @@ class VBMCOptions:
     # new point) into optim_state.acqtable (`activesample_vbmc.m:403-409`).
     acq_debug: bool = False
 
-    # --- TPU-specific knobs (not in the reference) ---
+    # --- Knobs of this implementation (not in the reference) ---
     seed: int = 0
     # Parallel slice-sampling chains for the GP hyperparameter posterior.
-    # The chain axis is vmapped (batched N^3 Cholesky on the MXU), so more
+    # The chain axis is vmapped (one batched N^3 Cholesky), so more
     # chains cut the SEQUENTIAL burn+thin depth ~proportionally at constant
     # device cost; 8 chains x shorter runs replaces the reference's single
     # long thinned chain (`gplite_train.m:316-330`).
@@ -226,7 +224,7 @@ class VBMCOptions:
         return o
 
 
-# Reference options whose mechanism was replaced by the TPU redesign: the
+# Reference options whose mechanism was replaced by this redesign: the
 # values are accepted (API parity) but not consulted. Each entry is
 # documented in PARITY.md with the replacing design.
 _FIXED_BY_DESIGN = (
@@ -369,7 +367,7 @@ class ResolvedOptions:
                 "implemented for n<=2 only, matching vbmc_power.m:64-65)")
 
         # Options accepted for reference-API parity whose behavior is FIXED
-        # by design in this implementation (the TPU redesign replaces the
+        # by design in this implementation (the redesign replaces the
         # mechanism they tune — e.g. sampler/optimizer selection, tolerance
         # stops of fixed-length scan loops; see PARITY.md). Setting them to
         # a non-default value warns instead of silently doing nothing.

@@ -5,8 +5,8 @@ parallel batch axes sharded over a 1-D mesh (SURVEY §2.8):
 
 - GP hyperparameter-sample ensembles (the S axis of every posterior array:
   alpha, L, Binv, sn2) — the reduction over samples in prediction,
-  quadrature and the BQ-ELBO (`gplogjoint.m:398-413`) becomes a psum over
-  ICI;
+  quadrature and the BQ-ELBO (`gplogjoint.m:398-413`) becomes a
+  cross-device psum;
 - sieve candidate batches (`vpsieve_vbmc.m:74-78`) and the GP-hyperparameter
   design evaluations (`fminfill`) — pure data parallelism;
 - acquisition candidate grids, through the fused proposal programs (the
@@ -45,10 +45,7 @@ def get_mesh() -> Optional[Mesh]:
         if flag == "0":
             _mesh = None
         else:
-            try:
-                devs = jax.devices()
-            except Exception:
-                devs = []
+            devs = jax.devices()
             if len(devs) > 1 or (flag == "1" and len(devs) >= 1):
                 _mesh = Mesh(np.asarray(devs), (AXIS,))
             else:

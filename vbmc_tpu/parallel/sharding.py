@@ -5,7 +5,7 @@ ensembles, and MCMC chains.
 Design: a 1-D mesh over all devices; batch axes are sharded with
 `NamedSharding` and the computation is expressed as ordinary jitted code —
 XLA inserts the all-gather/reduce collectives (argmin of acquisition values,
-moment averaging over hyperparameter samples) over ICI. No hand-written
+moment averaging over hyperparameter samples). No hand-written
 collectives are needed at these sizes; `shard_map` entry points are provided
 where explicit control is wanted.
 """
@@ -53,7 +53,7 @@ def sharded_acquisition_sweep(mesh: Mesh, cfg: GPConfig, name: str,
     """Acquisition sweep with the candidate axis sharded across the mesh.
 
     Returns (best_x, best_acq, acq_values). The argmin reduction crosses
-    shards; XLA lowers it to an all-reduce over ICI. The kernel is a
+    shards; XLA lowers it to an all-reduce. The kernel is a
     module-level jit — repeated calls hit the compile cache.
     """
     n = Xs.shape[0]

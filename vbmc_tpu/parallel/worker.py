@@ -6,9 +6,9 @@ The payload pickle carries (fun, bounds, options); the output is a
 serialized variational posterior with elbo/exitflag metadata — the slim
 result `vbmc_diagnostics` consumes.
 
-Honors VBMC_WORKER_PLATFORM=cpu|tpu (default: whatever the registered
-backend is) so a smoke test can pin workers to CPU while production
-dispatch targets one accelerator per worker via env.
+Honors VBMC_WORKER_PLATFORM=cpu|cuda (default: JAX's own choice) so a
+smoke test can pin workers to CPU; on a GPU machine the launcher gives
+each worker one card through CUDA_VISIBLE_DEVICES.
 """
 
 from __future__ import annotations

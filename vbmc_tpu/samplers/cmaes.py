@@ -1,4 +1,4 @@
-"""Batched CMA-ES for acquisition refinement (TPU-native replacement for the
+"""Batched CMA-ES for acquisition refinement (a batched replacement for the
 reference's `utils/cmaes_modded.m`, used at `activesample_vbmc.m:265-290`).
 
 Standard (mu/mu_w, lambda)-CMA-ES with rank-1 + rank-mu covariance updates;

@@ -2,7 +2,7 @@
 walkers; each walker updates by slice sampling along a direction defined by
 two other walkers (differential directions, Karamanis & Beyer 2020 style).
 
-TPU-native: the walker population advances as a batch; the per-walker slice
+Batched: the walker population advances as a batch; the per-walker slice
 search is a `lax.while_loop`, the move over walkers a `lax.fori_loop`, and
 the whole chain one jit-compiled `lax.scan`. Used for importance-sampling
 MCMC refresh and as the 'covsample' GP-hyperparameter sampler.
@@ -60,7 +60,7 @@ def _slice_direction(key, logpdf, x, logp_x, direction, lb, ub):
 def _slice_direction_batch(keys, logpdf, xs, lps, dirs, lb, ub):
     """Vmapped `_slice_direction`: all movers advance in LOCK-STEP, so each
     shrink iteration is ONE batched logpdf evaluation (for the GP target: a
-    (H, N, N) Cholesky batch on the MXU instead of H sequential
+    (H, N, N) Cholesky batch instead of H sequential
     factorizations)."""
     return jax.vmap(
         lambda k, x, lp, d: _slice_direction(k, logpdf, x, lp, d, lb, ub)
@@ -72,7 +72,7 @@ def ensemble_slice_final(key, logpdf: Callable, x0s, lb, ub, n_steps,
     """Complementary-halves ensemble slice sampling, returning only the
     FINAL walker population (W, D) and its log-densities (W,).
 
-    The TPU-native 'covsample' (`get_GPTrainOptions.m:88-100`,
+    The batched 'covsample' (`get_GPTrainOptions.m:88-100`,
     `eissample_lite.m`) — and the reason it wins over coordinate-wise slice
     for GP hyperparameters: one sweep advances all W walkers with ~10
     batched target evaluations regardless of the dimension, while a

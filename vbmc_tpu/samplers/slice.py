@@ -1,6 +1,6 @@
 """Bounded coordinate-wise slice sampling, jit/vmap-native.
 
-TPU re-design of `gplite/private/slicesamplebnd.m`: the sequential
+A re-design of `gplite/private/slicesamplebnd.m`: the sequential
 stepping-out/shrinkage logic becomes `lax.while_loop`s inside a
 `lax.fori_loop` over coordinates and steps; multiple chains run as a `vmap`
 axis so hyperparameter ensembles are sampled in parallel instead of one long

@@ -132,8 +132,8 @@ def vp_rnd(vp: VariationalPosterior, key, N: int, orig_flag: bool = True,
 
     ``permute=False`` skips the random shuffle of the balanced assignment:
     order-invariant consumers (moments, fESS weights, candidate sets) don't
-    need it, and the 1e5-element sort it lowers to costs ~16 s of XLA
-    compile time on TPU (measured) plus per-call sort time."""
+    need it, and it lowers to a 1e5-element sort (compile time plus
+    per-call sort time)."""
     k_cat, k_eps, k_chi, k_perm = jax.random.split(key, 4)
     logw = jnp.where(vp.kmask, jnp.log(jnp.maximum(vp.w, jnp.finfo(vp.mu.dtype).tiny)), -jnp.inf)
     if balance_flag:

@@ -27,9 +27,9 @@ from vbmc_tpu.utils.math import bucket_k, bucket_mode, bucket_pow2
 def _bucket_ent(n: int) -> int:
     """Bucket per-component entropy sample counts to powers of two so jit
     caches stay small (more samples than requested is strictly better).
-    In coarse bucket mode (TPU) the floor is raised so the whole K schedule
-    shares at most two variants — the extra MC samples are cheaper than one
-    remote recompile."""
+    In coarse bucket mode the floor is raised so the whole K schedule
+    shares at most two variants — extra MC samples instead of
+    recompiles."""
     if n <= 0:
         return 0
     return bucket_pow2(n, lo=64 if bucket_mode() == "coarse" else 8)
