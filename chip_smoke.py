@@ -22,13 +22,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 The last line is ``{"ok": true, "device": {...}}``.
 
 ``--four-cards`` runs only the multi-device path on four cards: the
-sharded building blocks (acquisition sweep, ELBO step, fused proposals,
-quick update) against the same programs unsharded, and one mvn6 `vbmc()`
-run with the mesh over four cards against the same seed on one card.
+in-loop programs (acquisition sweep, ELBO value and gradient, the fused
+proposals, the quick update with GP retraining) on a GP sharded over the
+mesh against the same programs unsharded, and one mvn6 `vbmc()` run with
+the mesh over four cards against the same seed on one card.
 
 Usage: python chip_smoke.py [--four-cards]
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -48,19 +50,34 @@ STRESS_EVALS = 300
 TOL = {name: 1e-4 for name in (
     "gp_mean", "gp_var", "acq_prospective", "acq_prospective_argmin",
     "acq_viqr", "acq_viqr_argmin", "elbo", "elbo_grad")}
-# Sharded against unsharded on the same cards, both float32: the mesh
-# changes only the order of the cross-device sums (~1e-7 relative), so
-# single programs agree to 1e-4. A fused proposal's point goes through
-# 250 CMA-ES generations, which amplify that noise (3.4e-3 on four H100s):
-# 1e-2. The quick update is compared as a VP refit on a fixed GP (Adam and
-# the sieve's argmin), 1e-2: with GP retraining on, one slice-sampling
-# accept/reject flipped by rounding gives other hyperparameter samples
-# (seen on four H100s), so the retrain is checked end to end instead.
+# Sharded against unsharded on the same cards. The mesh changes only the
+# order of the cross-device sums. In float64 every in-loop program then
+# agrees to rounding times its own amplification: <= 1e-12 on four virtual
+# CPU devices, including the quick update's L-BFGS MAP polish. 1e-8 leaves
+# a margin of 1e4, while a wrong collective or a mis-sharded axis shows at
+# 1e-2 or more. A proposal point is the minimizer of a smooth acquisition,
+# which rounding fixes only to ~sqrt(eps) relative (float64: 1.7e-8 and
+# 5.2e-8 on four virtual CPU devices), so the point is information and
+# the check is its regret: how much worse, by the unsharded objective, the
+# sharded program's point is than the unsharded program's. On four H100s
+# the float64 quick update does not agree (PERF.md, Findings): that check
+# fails there, and its cause is open.
+TOL_SHARD64 = {name: 1e-8 for name in (
+    "acq", "elbo_value", "elbo_grad", "propose_f", "propose_x_regret",
+    "propose_is_f", "propose_is_x_regret", "quick_update_hyp",
+    "quick_update_alpha", "quick_update_vp_mu")}
+# In float32 (the bench dtype) the one-pass programs and the regrets agree
+# to 1e-4 as in the parity phase. The rest are printed beside the
+# unsharded program's own change under a one-ulp nudge of its
+# hyperparameter samples, as information: the quick update's 8-step L-BFGS
+# MAP polish turns that nudge into ~1e-2 differences (four virtual CPU
+# devices: sharded and nudged both move alpha by 0.26, hyp by 0.015), and
+# the proposal points move by ~sqrt(eps) = 3.5e-4 either way.
+TOL_SHARD32 = {name: 1e-4 for name in (
+    "acq", "elbo_value", "elbo_grad", "propose_f", "propose_x_regret",
+    "propose_is_f", "propose_is_x_regret")}
 # Two full runs diverge once an acquisition argmin flips, so their ELBOs
 # agree only statistically: within the accuracy gate's own width.
-TOL_SHARD = {"sweep": 1e-4, "elbo_value_and_grad": 1e-4, "propose_f": 1e-4,
-             "propose_is_f": 1e-4, "propose_x": 1e-2, "propose_is_x": 1e-2,
-             "quick_update_vp_mu": 1e-2}
 TOL_SHARD_ELBO = 0.5
 
 
@@ -90,6 +107,13 @@ def argmin_regret(a, b) -> tuple:
     b = np.asarray(b, np.float64)
     gap = float(b[int(np.argmin(a))] - np.min(b))
     return gap, gap / max(abs(float(np.min(b))), 1e-300)
+
+
+def regret(f_got, f_ref) -> tuple:
+    """How much worse objective value ``f_got`` is than ``f_ref``:
+    (abs, relative to |f_ref|); negative when it is better."""
+    gap = float(f_got) - float(f_ref)
+    return gap, gap / max(abs(float(f_ref)), 1e-300)
 
 
 def kernel_outputs(hp, device, x64: bool, ais_host=None):
@@ -140,13 +164,32 @@ def kernel_outputs(hp, device, x64: bool, ais_host=None):
     return {k: np.asarray(v, np.float64) for k, v in out.items()}, ais_host
 
 
+@contextlib.contextmanager
+def no_persistent_cache():
+    """Compile without the persistent compilation cache. JAX decides once
+    per process whether it uses the cache, so the decision is reset on the
+    way in and out. Keeps the float64 CPU reference out of the cache:
+    XLA:CPU results are tied to the CPU features of the host that compiled
+    them."""
+    import jax
+    from jax.experimental.compilation_cache import compilation_cache as cc
+    was = jax.config.jax_enable_compilation_cache
+    cc.reset_cache()
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", was)
+        cc.reset_cache()
+
+
 def parity(hp, device, ref_device, precision=None) -> dict:
     """Errors of the float32 run on ``device`` against the float64 run on
     ``ref_device``, as {name: (abs, rel)}. ``precision`` overrides the
     matmul precision of the float32 run."""
-    import contextlib
     import jax
-    ref, ais_host = kernel_outputs(hp, ref_device, x64=True)
+    with no_persistent_cache():
+        ref, ais_host = kernel_outputs(hp, ref_device, x64=True)
     ctx = (jax.default_matmul_precision(precision) if precision
            else contextlib.nullcontext())
     with ctx:
@@ -158,14 +201,18 @@ def parity(hp, device, ref_device, precision=None) -> dict:
 
 
 def print_errors(errs: dict, tol: dict, enforce: bool = True) -> list:
-    """Print each error beside its tolerance; return the names over it."""
+    """Print each error beside its tolerance; return the names over it.
+    Names without a tolerance in ``tol`` are information only."""
     bad = []
     for name, (ab, rel) in errs.items():
-        over = rel > tol[name]
-        bad += [name] if over else []
-        verdict = ("FAIL" if over else "ok") if enforce else "info"
+        limit = tol.get(name)
+        over = limit is not None and rel > limit
+        bad += [name] if over and enforce else []
+        verdict = (("FAIL" if over else "ok")
+                   if enforce and limit is not None else "info")
+        shown = f"{limit:.1e}" if limit is not None else "-"
         print(f"  {name:24s} abs={ab:.6e} rel={rel:.6e} "
-              f"tol={tol[name]:.1e} {verdict}", flush=True)
+              f"tol={shown} {verdict}", flush=True)
     return bad
 
 
@@ -250,26 +297,38 @@ def _use_mesh(on: bool):
     return context.get_mesh()
 
 
-def sharded_blocks(devices, hp, n_search=8192, max_evals=4000) -> dict:
-    """The sharded building blocks on a mesh over ``devices`` against the
-    same programs unsharded; {name: (abs, rel)} of sharded vs unsharded."""
+def sharded_blocks(hp, ulp_witness: bool = False, n_search=8192,
+                   max_evals=4000) -> dict:
+    """The in-loop programs on a GP sharded over the process mesh (all
+    devices) against the same programs unsharded, in JAX's current default
+    dtype: {name: (abs, rel)} of sharded vs unsharded. These are the calls
+    `vbmc()` makes with the mesh on: the sweep and the ELBO on
+    `shard_gp(gp)`, the fused proposals, and the quick update (GP retrain
+    with its MAP polish, then the VP refit) through its host wrapper.
+
+    The proposal points also get "*_regret": their regret by the unsharded
+    objective against the unsharded program's point (`regret`).
+
+    With ``ulp_witness``, {name + "_ulp": ...} adds the unsharded programs
+    with every hyperparameter sample nudged by one ulp against the same
+    programs unnudged: how far rounding alone moves each output."""
     import numpy as np
     import jax
     import jax.numpy as jnp
     import bench_kernels
     from vbmc_tpu import elbo as eb
     from vbmc_tpu.acquisitions import evaluate_acquisition
+    from vbmc_tpu.active_is import build_is_state_core, \
+        evaluate_is_acquisition
     from vbmc_tpu.active_sample import _propose_point, _propose_point_is
     from vbmc_tpu.function_logger import FunctionLogger
     from vbmc_tpu.gp.config import GPConfig
     from vbmc_tpu.gp.fit import TrainOptions
+    from vbmc_tpu.gp.gp import gp_from_host
     from vbmc_tpu.options import VBMCOptions
     from vbmc_tpu.parallel.context import shard_gp
-    from vbmc_tpu.parallel.sharding import (
-        make_mesh, sharded_acquisition_sweep, sharded_hyp_ensemble_step)
     from vbmc_tpu.quick_update import QuickUpdater
 
-    mesh = make_mesh(devices)
     p = bench_kernels.device_problem(hp)
     cfg, gp, vp, Xs, state = p["cfg"], p["gp"], p["vp"], p["Xs"], p["state"]
     D, S = hp["D"], hp["S"]
@@ -293,11 +352,10 @@ def sharded_blocks(devices, hp, n_search=8192, max_evals=4000) -> dict:
     hyps_n[:, cfg_n.ncov] = np.log(0.05)
     hyps_n[:, cfg_n.ncov + cfg_n.nnoise + 1 + D:] = np.log(1.2)
     hyps_n += 0.05 * rng.standard_normal(hyps_n.shape)
-    from vbmc_tpu.gp.gp import gp_from_host
     gp_n = gp_from_host(cfg_n, hp["X"], hp["y"], np.full(hp["N"], 0.25),
                         hyps_n, n_bucket=hp["N"], s_bucket=S)
 
-    # The quick update (VP refit on the given GP) through its host wrapper.
+    # Training data of the quick update, as the orchestrator's log holds it.
     opt = VBMCOptions(seed=0).resolve(D)
     logger = FunctionLogger(lambda x: 0.0, D, vp.trinfo)
     for xi, yi in zip(hp["X"][:48], hp["y"][:48]):
@@ -305,7 +363,17 @@ def sharded_blocks(devices, hp, n_search=8192, max_evals=4000) -> dict:
     topts = TrainOptions(ns_samples=S, ninit=0, nopts=1, thin=2,
                          n_chains=4, lbfgs_iters=8)
 
-    def run(gp_, gp_n_, sweep, elbo_step):
+    @jax.jit
+    def elbo_value_and_grad(th, gp_):
+        def f(t):
+            F, _ = eb.negelcbo(cfg, t, gp_, vp.mu, vp.sigma, vp.lam, vp.w,
+                               vp.kmask, flags, 0.0, 0, 0,
+                               jax.random.PRNGKey(0))
+            return F
+        return jax.value_and_grad(f)(th)
+
+    def run(gp_, gp_n_):
+        F, g = elbo_value_and_grad(theta, gp_)
         x_p, f_p = _propose_point(cfg, "prospective", key, salt, vp, gp_,
                                   state, sb_lb, sb_ub, smooth=False,
                                   refine=True, **common)
@@ -316,40 +384,54 @@ def sharded_blocks(devices, hp, n_search=8192, max_evals=4000) -> dict:
         # A fresh updater each time: it salts its key with a call count.
         upd = QuickUpdater(cfg, opt, topts, np.full(D, -2.0),
                            np.full(D, 2.0), warmup=False,
-                           entropy_switch=False, K=hp["K"], do_gp=False,
+                           entropy_switch=False, K=hp["K"], do_gp=True,
                            do_vp=True)
-        _, vp_u, _ = upd(jax.random.PRNGKey(11), logger, gp_, vp)
-        out = dict(sweep=sweep(), elbo_value_and_grad=elbo_step(),
-                   propose_f=f_p, propose_x=x_p, propose_is_f=f_i,
-                   propose_is_x=x_i, quick_update_vp_mu=vp_u.mu)
-        return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
-                                      jax.device_get(out))
+        gp_u, vp_u, _ = upd(jax.random.PRNGKey(11), logger, gp_, vp)
+        out = dict(acq=evaluate_acquisition(cfg, "prospective", Xs, vp, gp_,
+                                            state),
+                   elbo_value=F, elbo_grad=g, propose_x=x_p, propose_f=f_p,
+                   propose_is_x=x_i, propose_is_f=f_i,
+                   quick_update_hyp=gp_u.hyp, quick_update_alpha=gp_u.alpha,
+                   quick_update_vp_mu=vp_u.mu)
+        return {k: np.asarray(v, np.float64)
+                for k, v in jax.device_get(out).items()}
 
-    def elbo_plain():
-        def f(th):
-            F, _ = eb.negelcbo(cfg, th, gp, vp.mu, vp.sigma, vp.lam, vp.w,
-                               vp.kmask, flags, 0.0, 0, 0,
-                               jax.random.PRNGKey(0))
-            return F
-        return jnp.concatenate([jnp.atleast_1d(v) for v in
-                                jax.value_and_grad(f)(theta)])
-
-    def elbo_sharded():
-        v, g = sharded_hyp_ensemble_step(mesh, cfg, theta, gp, vp.mu,
-                                         vp.sigma, vp.lam, vp.w, vp.kmask,
-                                         flags)
-        return jnp.concatenate([jnp.atleast_1d(v), g])
+    def nudge(g):
+        return g._replace(hyp=g.hyp * (1 + jnp.finfo(dtype).eps))
 
     assert _use_mesh(False) is None
-    ref = run(gp, gp_n,
-              lambda: evaluate_acquisition(cfg, "prospective", Xs, vp, gp,
-                                           state), elbo_plain)
-    assert _use_mesh(True).devices.size == len(devices)
-    got = run(shard_gp(gp, mesh), shard_gp(gp_n, mesh),
-              lambda: sharded_acquisition_sweep(mesh, cfg, "prospective", Xs,
-                                                vp, gp, state)[2],
-              elbo_sharded)
-    return {k: errors(got[k], ref[k]) for k in ref}
+    ref = run(gp, gp_n)
+    # The unsharded objectives of the two proposals; the VIQR one with the
+    # integration set its program builds from the same key.
+    k_is = jax.random.split(jax.random.fold_in(key, salt), 3)[0]
+    ais = jax.jit(build_is_state_core, static_argnums=(1, 2, 5, 6, 7),
+                  static_argnames=("mh_steps", "fess_thresh"))(
+        k_is, cfg_n, "viqr", vp, gp_n, 100, 100, 100, mh_steps=3,
+        fess_thresh=0.5)
+    objective = dict(
+        propose_x=lambda x: evaluate_acquisition(
+            cfg, "prospective", x, vp, gp, state),
+        propose_is_x=lambda x: evaluate_is_acquisition(
+            cfg_n, "viqr", x, vp, gp_n, state, ais))
+
+    def compare(out):
+        errs = {k: errors(out[k], ref[k]) for k in ref}
+        for k, f in objective.items():
+            errs[k + "_regret"] = regret(
+                *jax.device_get(f(jnp.asarray(np.stack([out[k], ref[k]]),
+                                              dtype))))
+        return errs
+
+    errs = {}
+    if ulp_witness:
+        errs = {k + "_ulp": e
+                for k, e in compare(run(nudge(gp), nudge(gp_n))).items()}
+    mesh = _use_mesh(True)
+    got = run(shard_gp(gp, mesh), shard_gp(gp_n, mesh))
+    assert mesh.devices.size == len(jax.devices())
+    assert _use_mesh(False) is None
+    errs.update(compare(got))
+    return dict(sorted(errs.items()))
 
 
 def phase_four_cards(clock):
@@ -361,11 +443,17 @@ def phase_four_cards(clock):
     if len(devs) != 4:
         raise RuntimeError(f"--four-cards needs 4 GPUs; JAX found "
                            f"{len(devs)}")
-    print("[four-cards] sharded building blocks vs unsharded, float32",
+    hp = bench_kernels.host_problem(**PARITY_SHAPES)
+    print("[four-cards] in-loop programs, sharded GP vs unsharded, float64",
           flush=True)
-    errs = sharded_blocks(devs, bench_kernels.host_problem(**PARITY_SHAPES))
-    bad = print_errors(errs, TOL_SHARD)
-    failures = [f"sharded blocks over tolerance: {bad}"] if bad else []
+    t0 = time.monotonic()
+    with jax.enable_x64(True):
+        bad = print_errors(sharded_blocks(hp), TOL_SHARD64)
+    print(f"[four-cards] the same in float32 ({time.monotonic() - t0:.1f} s "
+          "so far); *_ulp: the unsharded program with its hyperparameter "
+          "samples nudged by one ulp", flush=True)
+    bad += print_errors(sharded_blocks(hp, ulp_witness=True), TOL_SHARD32)
+    failures = [f"sharded programs over tolerance: {bad}"] if bad else []
 
     blk = {b["name"]: b for b in bench._blocks()}["mvn6"]
     print("[four-cards] mvn6 vbmc() with the mesh over 4 cards", flush=True)

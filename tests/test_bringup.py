@@ -1,12 +1,14 @@
 """Bring-up plumbing that runs without a card: compile-cache resolution,
 the launcher's one-worker-per-card plan, the published-peak table, and
-`chip_smoke.py`'s device check and parity helper (CPU against CPU)."""
+`chip_smoke.py`'s device check, cache guard, parity helper (CPU against
+CPU) and sharded-vs-unsharded comparison (on the virtual CPU mesh)."""
 
 import os
 import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,10 +38,29 @@ def test_compile_cache_dir_ignores_cwd(tmp_path, monkeypatch):
 
 
 def test_configure_compile_cache_sets_nothing_when_env_set(monkeypatch):
-    before = jax.config.jax_compilation_cache_dir
+    before = (jax.config.jax_compilation_cache_dir,
+              jax.config.jax_persistent_cache_min_compile_time_secs)
     monkeypatch.setenv(cc.ENV, "/srv/xla")
     assert cc.configure_compile_cache() == "/srv/xla"
-    assert jax.config.jax_compilation_cache_dir == before
+    assert (jax.config.jax_compilation_cache_dir,
+            jax.config.jax_persistent_cache_min_compile_time_secs) == before
+
+
+def test_configure_compile_cache_keeps_every_program_in_checkout(
+        monkeypatch):
+    """Unset on a GPU: the checkout cache, with no minimum compile time."""
+    monkeypatch.delenv(cc.ENV, raising=False)
+    monkeypatch.setattr(cc.jax, "default_backend", lambda: "gpu")
+    saved = (jax.config.jax_compilation_cache_dir,
+             jax.config.jax_persistent_cache_min_compile_time_secs)
+    try:
+        assert cc.configure_compile_cache() == CHECKOUT_CACHE
+        assert jax.config.jax_compilation_cache_dir == CHECKOUT_CACHE
+        assert jax.config.jax_persistent_cache_min_compile_time_secs == 0
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          saved[1])
 
 
 @pytest.mark.parametrize("n_runs, cards, expected", [
@@ -94,3 +115,45 @@ def test_chip_smoke_parity_cpu_vs_cpu():
     errs = chip_smoke.parity(hp, cpu, cpu)
     assert set(errs) == set(chip_smoke.TOL)
     assert all(rel <= chip_smoke.TOL[k] for k, (_, rel) in errs.items()), errs
+
+
+def test_no_persistent_cache_keeps_programs_out(tmp_path):
+    """Programs compiled inside the guard are neither written to nor read
+    from the persistent cache; those compiled after it are written again."""
+    from jax.experimental.compilation_cache import compilation_cache as jcc
+    saved = (jax.config.jax_compilation_cache_dir,
+             jax.config.jax_persistent_cache_min_compile_time_secs)
+    jax.config.update("jax_compilation_cache_dir", str(tmp_path))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    jcc.reset_cache()
+    try:
+        def compile_one(c):
+            jax.jit(lambda x: x * c + 1.0)(jnp.ones(7)).block_until_ready()
+            return len(os.listdir(tmp_path))
+
+        n1 = compile_one(3.0)
+        assert n1 > 0
+        with chip_smoke.no_persistent_cache():
+            assert compile_one(5.0) == n1
+        assert compile_one(7.0) > n1
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          saved[1])
+        jcc.reset_cache()
+
+
+def test_chip_smoke_sharded_programs_match_unsharded(monkeypatch):
+    """The four-card comparison at tiny widths on the virtual 8-device
+    mesh, float64: every enforced check is within its tolerance, the quick
+    update's GP retrain included."""
+    from vbmc_tpu.parallel import context
+    monkeypatch.setenv("VBMC_SHARD", "auto")
+    hp = bench_kernels.host_problem(N=32, S=8, K=2, M=64, D=2)
+    try:
+        errs = chip_smoke.sharded_blocks(hp, n_search=64, max_evals=32)
+    finally:
+        context.reset_mesh()
+    assert set(chip_smoke.TOL_SHARD64) <= set(errs)
+    assert all(errs[k][1] <= tol
+               for k, tol in chip_smoke.TOL_SHARD64.items()), errs

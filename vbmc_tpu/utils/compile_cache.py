@@ -5,7 +5,9 @@
 - Unset, on a GPU: a fixed directory inside the checkout
   (``<checkout>/.jax_cache``, listed in ``.gitignore``). The path is part of
   the cache key, so it never depends on the working directory, a process id
-  or the time.
+  or the time. Every program is kept, however short its compile: a
+  `vbmc()` run compiles hundreds of small programs, and JAX's default
+  keeps only those that take over a second.
 - Unset, on the CPU: no cache (the CPU AOT cache is brittle across CPU
   feature sets).
 """
@@ -41,4 +43,5 @@ def configure_compile_cache() -> Optional[str]:
     cache_dir = compile_cache_dir(jax.default_backend())
     if cache_dir is not None and not os.environ.get(ENV):
         jax.config.update("jax_compilation_cache_dir", cache_dir)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
     return cache_dir
